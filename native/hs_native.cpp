@@ -1,4 +1,4 @@
-// Native host-side kernels for hairsplitter_tpu.
+// Native host-side kernels for hairsplitter_jax.
 //
 // The reference implements its host runtime in C++/OpenMP (stage binaries,
 // src/*.cpp); here the device work lives in XLA/Pallas and this small C++
@@ -252,7 +252,7 @@ void hs_merge_close_clusters(const int8_t* adj, int64_t n, int64_t* labels,
 // bit-identical by construction (same formulas, same first-argmin
 // tie-breaks, same masked INF semantics). XLA-CPU runs the jnp scan at
 // ~50 Mcells/s; this loop runs at ~0.5-1 Gcells/s and threads across jobs,
-// so CPU-backend mapping (tests, non-TPU deployments) stops being DP-bound.
+// so CPU-backend mapping (tests, hosts without a GPU) stops being DP-bound.
 static const int32_t HS_ALIGN_INF = 1 << 20;
 static const int8_t HS_T_SENTINEL = 6;
 enum { HS_TB_EQ = 0, HS_TB_X = 1, HS_TB_I = 2, HS_TB_D = 3 };

@@ -1,12 +1,11 @@
 """Warm full-pipeline profiling on the current backend.
 
 Runs the end-to-end pipeline twice in one process on a simulated
-multi-strain dataset (cold run pays the remote compiles; the warm run is
-the deployment-representative number since local-TPU hosts cache
-compiles) and prints the warm per-stage wall/throughput table from
+multi-strain dataset (the cold run pays the compiles, the warm run reuses
+them) and prints the warm per-stage wall/throughput table from
 stage_stats.json.
 
-Usage: PYTHONPATH=/root/repo python scripts/bench_pipeline.py \
+Usage: python scripts/bench_pipeline.py \
           [--length 300000] [--strains 3] [--coverage 30] [--err 0.10]
 """
 
@@ -24,9 +23,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from hairsplitter_tpu.io.fasta import write_fasta
-from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, run_pipeline
-from hairsplitter_tpu.utils import sim
+from hairsplitter_jax.io.fasta import write_fasta
+from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, run_pipeline
+from hairsplitter_jax.utils import sim
 
 
 def build_dataset(root: str, length: int, strains: int, coverage: float, err: float, seed: int):

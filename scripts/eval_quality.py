@@ -10,11 +10,11 @@ Two scenarios from the round-4 verdict's "done" criteria:
                (rare strain ~5x absolute). Target: rare recovery >= 0.9,
                0 switches.
 
-Prints one JSON line with the metrics. Runs on any backend
-(JAX_PLATFORMS=cpu recommended off-TPU).
+Prints one JSON line with the metrics. Runs on the GPU or, with
+JAX_PLATFORMS=cpu, on the CPU.
 
-Usage: PYTHONPATH=/root/repo python scripts/eval_quality.py metagenome
-       PYTHONPATH=/root/repo python scripts/eval_quality.py skewed [--rare-cov 5]
+Usage: python scripts/eval_quality.py metagenome
+       python scripts/eval_quality.py skewed [--rare-cov 5]
 """
 
 from __future__ import annotations
@@ -31,15 +31,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from hairsplitter_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()
-
-from hairsplitter_tpu.io.fasta import write_fasta
-from hairsplitter_tpu.io.gfa import AssemblyGraph, parse_gfa, write_gfa
-from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, run_pipeline
-from hairsplitter_tpu.utils import sim as S
-from hairsplitter_tpu.utils.evaluate import evaluate_phasing
+from hairsplitter_jax.io.fasta import write_fasta
+from hairsplitter_jax.io.gfa import AssemblyGraph, parse_gfa, write_gfa
+from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, run_pipeline
+from hairsplitter_jax.utils import sim as S
+from hairsplitter_jax.utils.evaluate import evaluate_phasing
 
 
 def _n50(lengths: list[int]) -> int:
@@ -67,7 +63,7 @@ def run_metagenome(root: str, seed: int, n_species: int = 10, length: int = 100_
     for si, strains in enumerate(species):
         asm.add_segment(f"sp{si}", strains[0], depth=coverage)
         if use_sim2:
-            from hairsplitter_tpu.utils import sim2
+            from hairsplitter_jax.utils import sim2
 
             r = sim2.generate(strains, coverage=coverage / len(strains), seed=seed * 100 + si)
             per_species_reads.append(r)
@@ -129,7 +125,7 @@ def run_skewed(root: str, seed: int, length: int = 100_000, base_cov: float = 30
     reads_path = os.path.join(root, "reads.fasta")
     write_fasta(asm_path, {"collapsed": haps[0]})
     if use_sim2:
-        from hairsplitter_tpu.utils import sim2
+        from hairsplitter_jax.utils import sim2
 
         reads2 = sim2.generate(haps, coverage=base_cov, seed=seed + 1, abundances=ab)
         sim2.write_fasta(reads_path, reads2)

@@ -3,7 +3,7 @@
 package (`models/polisher_weights.npz`) — the analogue of medaka's
 downloadable pretrained models.
 
-Usage: PYTHONPATH=/root/repo python scripts/train_polisher.py [--steps 800]
+Usage: python scripts/train_polisher.py [--steps 800]
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ def main() -> None:
     ap.add_argument("--out", default="")
     args = ap.parse_args()
 
-    from hairsplitter_tpu.models import polisher as P
+    from hairsplitter_jax.models import polisher as P
 
     t0 = time.time()
     nn = P.train_polisher(

@@ -1,11 +1,11 @@
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.constants import decode_seq, encode_seq, revcomp
-from hairsplitter_tpu.core.mapping import MapConfig, map_reads
-from hairsplitter_tpu.core.seeding import MinimizerIndex, chain_anchors, find_chains, minimizers
-from hairsplitter_tpu.io.cigar import OPS, cigar_query_len, cigar_target_len, expand_cigar
-from hairsplitter_tpu.ops.align import (
+from hairsplitter_jax.constants import decode_seq, encode_seq, revcomp
+from hairsplitter_jax.core.mapping import MapConfig, map_reads
+from hairsplitter_jax.core.seeding import MinimizerIndex, chain_anchors, find_chains, minimizers
+from hairsplitter_jax.io.cigar import OPS, cigar_query_len, cigar_target_len, expand_cigar
+from hairsplitter_jax.ops.align import (
     BandSpec,
     Q_SENTINEL,
     T_SENTINEL,
@@ -13,7 +13,7 @@ from hairsplitter_tpu.ops.align import (
     readout,
     traceback_batch,
 )
-from hairsplitter_tpu.utils.sim import make_haplotypes, random_genome, simulate_reads
+from hairsplitter_jax.utils.sim import make_haplotypes, random_genome, simulate_reads
 
 
 def _align_pair(q, t, mode=0, spec=BandSpec(chunk=64, band=128)):
@@ -196,29 +196,6 @@ def test_map_reads_with_errors(rng):
         assert a.nm / max(1, len(exp)) < 0.15
 
 
-def test_bp4_pack_roundtrip(rng):
-    """Device bp packing (4 backpointers per byte) inverts exactly on host."""
-    from hairsplitter_tpu.core.mapping import _device_align_fn, unpack_bp4
-    from hairsplitter_tpu.ops.align import banded_align_batch
-
-    spec = BandSpec(chunk=64, band=128)
-    N = 32
-    q = rng.integers(0, 4, (N, spec.chunk)).astype(np.int8)
-    t = np.full((N, spec.t_width), T_SENTINEL, dtype=np.int8)
-    t[:, : spec.chunk] = np.where(
-        rng.random((N, spec.chunk)) < 0.1, rng.integers(0, 4, (N, spec.chunk)), q
-    )
-    ql = rng.integers(1, spec.chunk + 1, N).astype(np.int32)
-    tl = rng.integers(1, spec.chunk + 1, N).astype(np.int32)
-    bp4, meta = _device_align_fn(spec, False)(q, ql, t, tl)
-    plain = banded_align_batch(q, ql, t, tl, spec)
-    assert np.array_equal(unpack_bp4(np.asarray(bp4)), np.asarray(plain["bp"]))
-    meta = np.asarray(meta)
-    assert np.array_equal(meta[:, : spec.band], np.asarray(plain["row_at_q"]))
-    assert np.array_equal(meta[:, spec.band], np.asarray(plain["colmin_val"]))
-    assert np.array_equal(meta[:, spec.band + 1], np.asarray(plain["colmin_i"]))
-
-
 def test_rescue_mapping_at_ultra_noise(rng):
     """15-mer anchors starve at 28% read error; the shorter-minimizer rescue
     pass must still map nearly everything."""
@@ -237,8 +214,8 @@ def test_native_cpu_fused_aligner_bit_identical():
     random job matrix incl. extension modes and degenerate lengths."""
     import numpy as np
 
-    from hairsplitter_tpu import native as N
-    from tests.test_align_myers import _random_batch
+    from hairsplitter_jax import native as N
+    from tests.test_traceback_rows import random_batch
 
     if N.get_lib() is None:
         import pytest
@@ -250,7 +227,7 @@ def test_native_cpu_fused_aligner_bit_identical():
         (BandSpec(chunk=256, band=128), 48, 2),
     ]:
         rng = np.random.default_rng(seed)
-        q, qlens, t, tlens = _random_batch(rng, n, spec_)
+        q, qlens, t, tlens = random_batch(rng, n, spec_)
         modes = (np.arange(n) % 2).astype(np.int32)
         res = {k: np.asarray(v) for k, v in banded_align_batch(q, qlens, t, tlens, spec_).items()}
         cost, si, sb, clip = readout(res, qlens, tlens, modes, spec_)

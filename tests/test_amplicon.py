@@ -3,10 +3,10 @@
 
 import numpy as np
 
-from hairsplitter_tpu.core.mapping import map_reads
-from hairsplitter_tpu.pipeline.call_variants import call_variants_for_contig
-from hairsplitter_tpu.pipeline.separate_reads import SeparateConfig, separate_reads_for_contig
-from hairsplitter_tpu.utils.sim import make_haplotypes, mutate, simulate_reads
+from hairsplitter_jax.core.mapping import map_reads
+from hairsplitter_jax.pipeline.call_variants import call_variants_for_contig
+from hairsplitter_jax.pipeline.separate_reads import SeparateConfig, separate_reads_for_contig
+from hairsplitter_jax.utils.sim import make_haplotypes, mutate, simulate_reads
 
 
 def test_amplicon_single_window(rng):

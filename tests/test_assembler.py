@@ -1,8 +1,8 @@
 import numpy as np
 
-from hairsplitter_tpu.constants import revcomp
-from hairsplitter_tpu.core.assembler import greedy_assemble
-from hairsplitter_tpu.utils.sim import random_genome, simulate_reads
+from hairsplitter_jax.constants import revcomp
+from hairsplitter_jax.core.assembler import greedy_assemble
+from hairsplitter_jax.utils.sim import random_genome, simulate_reads
 
 
 def _containment(a, b, k=31):

@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from hairsplitter_tpu.constants import encode_seq
-from hairsplitter_tpu.core.mapping import map_reads
-from hairsplitter_tpu.ops.consensus import consensus_from_cells, majority_counts
-from hairsplitter_tpu.pipeline.pileup import alignment_cells_full, orient_read
-from hairsplitter_tpu.utils.sim import make_haplotypes, mutate, simulate_reads
+from hairsplitter_jax.constants import encode_seq
+from hairsplitter_jax.core.mapping import map_reads
+from hairsplitter_jax.ops.consensus import consensus_from_cells, majority_counts
+from hairsplitter_jax.pipeline.pileup import alignment_cells_full, orient_read
+from hairsplitter_jax.utils.sim import make_haplotypes, mutate, simulate_reads
 
 
 def _edit_distance(a, b):
@@ -74,8 +74,8 @@ def test_consensus_exact_at_ultra_noise(rng):
     """28% total read error (old-ONT worst case): the rescue mapping pass
     (core/mapping.py MapConfig.rescue) keeps coverage full, so the pileup
     vote stays exact; iterative polish must not degrade it."""
-    from hairsplitter_tpu.ops.consensus import polish_iterative
-    from hairsplitter_tpu.utils.sim import simulate_reads as _sr
+    from hairsplitter_jax.ops.consensus import polish_iterative
+    from hairsplitter_jax.utils.sim import simulate_reads as _sr
 
     truth = make_haplotypes(2000, 1, 0.001, rng)[0]
     cons = _consensus_of(truth, truth, rng, cov=30, err=0.14)

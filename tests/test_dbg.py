@@ -9,10 +9,10 @@ reads into unitigs that extend the flanks through the repeat.
 
 import numpy as np
 
-from hairsplitter_tpu.io.gfa import AssemblyGraph, Link
-from hairsplitter_tpu.pipeline.dbg import build_dbg, dbg_unzip, paths_to_chunk_paths, unitigs
-from hairsplitter_tpu.pipeline.unzip import duplicate_contigs
-from hairsplitter_tpu.utils.sim import random_genome
+from hairsplitter_jax.io.gfa import AssemblyGraph, Link
+from hairsplitter_jax.pipeline.dbg import build_dbg, dbg_unzip, paths_to_chunk_paths, unitigs
+from hairsplitter_jax.pipeline.unzip import duplicate_contigs
+from hairsplitter_jax.utils.sim import random_genome
 
 
 def _knot():
@@ -101,7 +101,7 @@ def test_dbg_unitigs_linear_chain():
 
 
 def _rc(s):
-    from hairsplitter_tpu.constants import revcomp
+    from hairsplitter_jax.constants import revcomp
 
     return revcomp(s)
 

@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.constants import revcomp
-from hairsplitter_tpu.io import parse_gfa, write_gfa
-from hairsplitter_tpu.io.gfa import AssemblyGraph
-from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, run_pipeline
-from hairsplitter_tpu.utils.sim import make_haplotypes, mutate, simulate_reads, write_sim_fasta
+from hairsplitter_jax.constants import revcomp
+from hairsplitter_jax.io import parse_gfa, write_gfa
+from hairsplitter_jax.io.gfa import AssemblyGraph
+from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, run_pipeline
+from hairsplitter_jax.utils.sim import make_haplotypes, mutate, simulate_reads, write_sim_fasta
 
 
 def _kmers(s, k=31, step=1):

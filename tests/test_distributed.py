@@ -18,7 +18,7 @@ import sys
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.utils.sim import make_haplotypes, simulate_reads, write_sim_fasta
+from hairsplitter_jax.utils.sim import make_haplotypes, simulate_reads, write_sim_fasta
 
 
 def _free_port() -> int:
@@ -56,7 +56,8 @@ def dataset(tmp_path):
 
 def _worker_env():
     env = dict(os.environ)
-    env["PYTHONPATH"] = "/root/repo:" + env.get("PYTHONPATH", "")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("XLA_FLAGS", None)
     return env
@@ -67,7 +68,7 @@ def _run_two_process(asm, reads, out2, extra_args=()):
     procs = [
         subprocess.Popen(
             [
-                sys.executable, "-m", "hairsplitter_tpu.parallel.distributed",
+                sys.executable, "-m", "hairsplitter_jax.parallel.distributed",
                 "--coordinator", f"127.0.0.1:{port}",
                 "--num-processes", "2", "--process-id", str(pid),
                 "--cpu-devices", "2",
@@ -107,7 +108,7 @@ def test_two_process_pipeline_matches_single(dataset, tmp_path):
     assert gfa2.exists()
 
     # single-process reference run, in-process (conftest already forces CPU)
-    from hairsplitter_tpu.pipeline.orchestrate import run_pipeline
+    from hairsplitter_jax.pipeline.orchestrate import run_pipeline
 
     out1 = tmp_path / "out1p"
     gfa1 = run_pipeline(asm, reads, str(out1))
@@ -162,7 +163,7 @@ def test_two_process_noisy_with_ploidy_cap_matches_single(noisy_dataset, tmp_pat
     out2 = tmp_path / "out2p_noisy"
     _run_two_process(asm, reads, out2, extra_args=("-c", "12"))
 
-    from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, run_pipeline
+    from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, run_pipeline
 
     out1 = tmp_path / "out1p_noisy"
     gfa1 = run_pipeline(

@@ -1,8 +1,8 @@
 import numpy as np
 
-from hairsplitter_tpu.constants import revcomp
-from hairsplitter_tpu.utils.evaluate import evaluate_phasing
-from hairsplitter_tpu.utils.sim import make_haplotypes, mutate
+from hairsplitter_jax.constants import revcomp
+from hairsplitter_jax.utils.evaluate import evaluate_phasing
+from hairsplitter_jax.utils.sim import make_haplotypes, mutate
 
 
 def test_evaluate_pure_contigs(rng):

@@ -5,16 +5,16 @@ amplicon coverage-sorted export, single-read-group triage routing."""
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.graphunzip import main as gz_main
-from hairsplitter_tpu.io.gfa import parse_gfa
-from hairsplitter_tpu.utils.sim import random_genome
+from hairsplitter_jax.graphunzip import main as gz_main
+from hairsplitter_jax.io.gfa import parse_gfa
+from hairsplitter_jax.utils.sim import random_genome
 
 
 def test_rarest_strain_abundance_default_is_reference():
     """Reference default 0.01 (`hairsplitter.py:45`) -> per-column coverage
     cap 50/0.01 = 5000 (`separate_reads.cpp:1420-1426`)."""
-    from hairsplitter_tpu.cli import parse_args
-    from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig
+    from hairsplitter_jax.cli import parse_args
+    from hairsplitter_jax.pipeline.orchestrate import PipelineConfig
 
     assert PipelineConfig().rarest_strain_abundance == 0.01
     args = parse_args(["-i", "a.gfa", "-f", "r.fa", "-o", "out"])
@@ -94,11 +94,11 @@ def test_single_read_group_routes_to_triage(monkeypatch):
     """Groups with <2 reads must reach the triage ladder (reference
     `check_alignment` returns 2 when nb_reads < 2, tools.cpp:1045-1047) —
     previously they bypassed it and a one-read backbone shipped as-is."""
-    from hairsplitter_tpu.core.mapping import MapConfig, map_reads
-    from hairsplitter_tpu.io.gfa import AssemblyGraph
-    from hairsplitter_tpu.pipeline import new_contigs as nc
-    from hairsplitter_tpu.pipeline.separate_reads import ContigGroups, WindowGroups
-    from hairsplitter_tpu.utils.sim import random_genome
+    from hairsplitter_jax.core.mapping import MapConfig, map_reads
+    from hairsplitter_jax.io.gfa import AssemblyGraph
+    from hairsplitter_jax.pipeline import new_contigs as nc
+    from hairsplitter_jax.pipeline.separate_reads import ContigGroups, WindowGroups
+    from hairsplitter_jax.utils.sim import random_genome
 
     rng = np.random.default_rng(7)
     contig = random_genome(3000, rng)
@@ -130,8 +130,8 @@ def test_single_read_group_routes_to_triage(monkeypatch):
 def test_minimap2_params_translate_to_mapper():
     """--minimap2-params '-k19 -w19' tunes the built-in mapper; external
     tool path flags are accepted no-ops (reference hairsplitter.py:46-50)."""
-    from hairsplitter_tpu.cli import apply_minimap2_params, parse_args
-    from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig
+    from hairsplitter_jax.cli import apply_minimap2_params, parse_args
+    from hairsplitter_jax.pipeline.orchestrate import PipelineConfig
 
     args = parse_args([
         "-i", "a.gfa", "-f", "r.fa", "-o", "out",

@@ -1,11 +1,11 @@
-"""Standalone GraphUnzip-equivalent CLI (hairsplitter_tpu/graphunzip.py)."""
+"""Standalone GraphUnzip-equivalent CLI (hairsplitter_jax/graphunzip.py)."""
 
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.graphunzip import main as gz_main
-from hairsplitter_tpu.io.gfa import parse_gfa
-from hairsplitter_tpu.utils.sim import random_genome
+from hairsplitter_jax.graphunzip import main as gz_main
+from hairsplitter_jax.io.gfa import parse_gfa
+from hairsplitter_jax.utils.sim import random_genome
 
 
 def _gaf_line(read, path, qlen=1000):
@@ -93,10 +93,10 @@ def test_repolish_structural_variant_fallback(rng):
     # reads carry a 250bp block the copy lacks): the reference falls back to
     # cutting reads between flanking anchors and polishing the best-anchored
     # read (repolish.py:295-453); the copy must come out with the block
-    from hairsplitter_tpu.constants import revcomp
-    from hairsplitter_tpu.graphunzip import _repolish_copies
-    from hairsplitter_tpu.io.gfa import AssemblyGraph
-    from hairsplitter_tpu.utils.sim import simulate_reads
+    from hairsplitter_jax.constants import revcomp
+    from hairsplitter_jax.graphunzip import _repolish_copies
+    from hairsplitter_jax.io.gfa import AssemblyGraph
+    from hairsplitter_jax.utils.sim import simulate_reads
 
     base = random_genome(2500, rng)
     insert = random_genome(250, rng)
@@ -124,8 +124,8 @@ def test_duplicate_multiway(rng):
     # neighbors each hang off it by their only link is duplicated per
     # one-side neighbor with proportional depth; a shallow neighbor (<0.2x)
     # blocks duplication
-    from hairsplitter_tpu.io.gfa import AssemblyGraph, Link
-    from hairsplitter_tpu.pipeline.unzip import _neighbors, duplicate_multiway
+    from hairsplitter_jax.io.gfa import AssemblyGraph, Link
+    from hairsplitter_jax.pipeline.unzip import _neighbors, duplicate_multiway
 
     g = AssemblyGraph()
     for n, d in (("A", 12), ("B", 8), ("C", 12), ("D", 8), ("X", 20)):

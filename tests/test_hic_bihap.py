@@ -2,15 +2,15 @@
 
 import numpy as np
 
-from hairsplitter_tpu.core.mapping import map_reads
-from hairsplitter_tpu.io.gfa import AssemblyGraph, Link
-from hairsplitter_tpu.models.bihap import spectral_phase, write_bihap_solution
-from hairsplitter_tpu.pipeline.call_variants import call_variants_for_contig
-from hairsplitter_tpu.pipeline.hic import (
+from hairsplitter_jax.core.mapping import map_reads
+from hairsplitter_jax.io.gfa import AssemblyGraph, Link
+from hairsplitter_jax.models.bihap import spectral_phase, write_bihap_solution
+from hairsplitter_jax.pipeline.call_variants import call_variants_for_contig
+from hairsplitter_jax.pipeline.hic import (
     interaction_matrix_from_pairs,
     untangle_with_interactions,
 )
-from hairsplitter_tpu.utils.sim import make_haplotypes, mutate, simulate_reads
+from hairsplitter_jax.utils.sim import make_haplotypes, mutate, simulate_reads
 
 
 def test_hic_untangle_diamond():
@@ -71,7 +71,7 @@ def test_bihap_solution_file(tmp_path):
 
 
 def test_sinkhorn_normalize_rows():
-    from hairsplitter_tpu.pipeline.hic_solve import sinkhorn_normalize
+    from hairsplitter_jax.pipeline.hic_solve import sinkhorn_normalize
 
     m = np.array([[0, 8, 1], [8, 0, 3], [1, 3, 0]], dtype=float)
     w = sinkhorn_normalize(m)
@@ -100,12 +100,12 @@ def _diamond(depth_mid=20, mid_names=("S",)):
 def test_solve_with_interactions_knot():
     # the full iterative solver (reference solve_with_HiC.py:37-180): a
     # collapsed knot of TWO chained repeat contigs between 4 anchors
-    from hairsplitter_tpu.pipeline.hic_solve import solve_with_interactions
+    from hairsplitter_jax.pipeline.hic_solve import solve_with_interactions
 
     g = _diamond(depth_mid=20, mid_names=("S", "T"))
     names = list(g.segments)
     pairs = [("A", "B")] * 30 + [("C", "D")] * 30 + [("A", "D")] * 2
-    from hairsplitter_tpu.pipeline.hic import interaction_matrix_from_pairs
+    from hairsplitter_jax.pipeline.hic import interaction_matrix_from_pairs
 
     im = interaction_matrix_from_pairs(names, pairs)
     rep = solve_with_interactions(g, names, im.m)
@@ -129,7 +129,7 @@ def test_solve_with_interactions_knot():
 
 
 def test_solve_with_interactions_no_signal_leaves_graph_alone():
-    from hairsplitter_tpu.pipeline.hic_solve import solve_with_interactions
+    from hairsplitter_jax.pipeline.hic_solve import solve_with_interactions
 
     g = _diamond()
     names = list(g.segments)
@@ -139,7 +139,7 @@ def test_solve_with_interactions_no_signal_leaves_graph_alone():
 
 
 def test_find_anchor_contigs_modes():
-    from hairsplitter_tpu.pipeline.hic_solve import find_anchor_contigs
+    from hairsplitter_jax.pipeline.hic_solve import find_anchor_contigs
 
     g = _diamond(depth_mid=20)
     # confident coverage: the 2x-depth middle contig is not an anchor

@@ -7,10 +7,10 @@ so raw k19 minimizers starve of anchors.
 
 import numpy as np
 
-from hairsplitter_tpu.core.mapping import MapConfig, map_reads
-from hairsplitter_tpu.core.seeding import MinimizerIndex, hpc_compress, minimizers
-from hairsplitter_tpu.constants import encode_seq
-from hairsplitter_tpu.utils.sim import random_genome, simulate_reads
+from hairsplitter_jax.core.mapping import MapConfig, map_reads
+from hairsplitter_jax.core.seeding import MinimizerIndex, hpc_compress, minimizers
+from hairsplitter_jax.constants import encode_seq
+from hairsplitter_jax.utils.sim import random_genome, simulate_reads
 
 
 def test_hpc_compress():
@@ -55,7 +55,7 @@ def test_hpc_recall_on_clr_noise():
 
 
 def test_pacbio_preset_enables_hpc():
-    from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, apply_tech_preset
+    from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, apply_tech_preset
 
     cfg = apply_tech_preset(PipelineConfig(technology="pacbio"))
     assert cfg.map.hpc is True and cfg.map.k == 19

@@ -1,11 +1,11 @@
 import numpy as np
 
-from hairsplitter_tpu.core.mapping import map_reads
-from hairsplitter_tpu.io.col_gro import read_col, read_gro, write_col, write_gro
-from hairsplitter_tpu.io.sam import parse_sam, write_sam
-from hairsplitter_tpu.pipeline.call_variants import call_variants_for_contig
-from hairsplitter_tpu.pipeline.separate_reads import separate_reads_for_contig
-from hairsplitter_tpu.utils.sim import make_haplotypes, mutate, simulate_reads
+from hairsplitter_jax.core.mapping import map_reads
+from hairsplitter_jax.io.col_gro import read_col, read_gro, write_col, write_gro
+from hairsplitter_jax.io.sam import parse_sam, write_sam
+from hairsplitter_jax.pipeline.call_variants import call_variants_for_contig
+from hairsplitter_jax.pipeline.separate_reads import separate_reads_for_contig
+from hairsplitter_jax.utils.sim import make_haplotypes, mutate, simulate_reads
 
 
 def _dataset(rng):

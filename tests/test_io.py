@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.constants import decode_seq, encode_seq, revcomp, trimer_central, trimer_pack
-from hairsplitter_tpu.io import (
+from hairsplitter_jax.constants import decode_seq, encode_seq, revcomp, trimer_central, trimer_pack
+from hairsplitter_jax.io import (
     AssemblyGraph,
     Link,
     ReadStore,
@@ -18,8 +18,8 @@ from hairsplitter_tpu.io import (
     write_fasta,
     write_gfa,
 )
-from hairsplitter_tpu.io.cigar import merge_cigars
-from hairsplitter_tpu.utils.sim import make_haplotypes, simulate_reads, write_sim_fasta
+from hairsplitter_jax.io.cigar import merge_cigars
+from hairsplitter_jax.utils.sim import make_haplotypes, simulate_reads, write_sim_fasta
 
 
 def test_encode_decode_roundtrip():

@@ -11,11 +11,11 @@ strict spanning + flat floors lose such strains
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.io.fasta import write_fasta
-from hairsplitter_tpu.io.gfa import parse_gfa
-from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, run_pipeline
-from hairsplitter_tpu.utils import sim as S
-from hairsplitter_tpu.utils.evaluate import evaluate_phasing
+from hairsplitter_jax.io.fasta import write_fasta
+from hairsplitter_jax.io.gfa import parse_gfa
+from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, run_pipeline
+from hairsplitter_jax.utils import sim as S
+from hairsplitter_jax.utils.evaluate import evaluate_phasing
 
 
 @pytest.mark.slow
@@ -45,7 +45,7 @@ def test_rare_strain_5x_recovered(tmp_path):
 def test_split_communities_weak_cut():
     """A tight triangle welded to a dense cluster by one edge splits off;
     a well-connected cluster does not."""
-    from hairsplitter_tpu.pipeline.separate_reads import split_communities
+    from hairsplitter_jax.pipeline.separate_reads import split_communities
 
     n = 19
     adj = np.zeros((n, n), dtype=np.int8)

@@ -3,7 +3,7 @@ merge_intervals (reference create_new_contigs.cpp:833-903, 1427-1533)."""
 
 import numpy as np
 
-from hairsplitter_tpu.pipeline.new_contigs import Interval, merge_intervals, stitch_groups
+from hairsplitter_jax.pipeline.new_contigs import Interval, merge_intervals, stitch_groups
 
 
 def _iv(start, end, labels):

@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.io import parse_gfa
-from hairsplitter_tpu.io.fasta import read_fasta
-from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, run_pipeline
-from hairsplitter_tpu.utils.sim import SimReads, write_sim_fasta
+from hairsplitter_jax.io import parse_gfa
+from hairsplitter_jax.io.fasta import read_fasta
+from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, run_pipeline
+from hairsplitter_jax.utils.sim import SimReads, write_sim_fasta
 
 MOCK_DIR = "/root/reference/test/simple_mock"
 
@@ -35,7 +35,7 @@ def _containment(a, b_kmers, k=31):
 def test_simple_mock_pipeline(tmp_path, rng):
     ref = read_fasta(os.path.join(MOCK_DIR, "mock_reference.fasta"))
     haps = [ref["seq1"], ref["seq2"], ref["seq3"]]
-    from hairsplitter_tpu.utils.sim import simulate_reads
+    from hairsplitter_jax.utils.sim import simulate_reads
 
     sim = simulate_reads(
         haps, coverage=15, read_len=8000, rng=rng,
@@ -57,7 +57,7 @@ def test_simple_mock_pipeline(tmp_path, rng):
     assert 260_000 <= total <= 460_000, f"total output {total}"
     # every haplotype's variant-region sequence must be reconstructed
     # (contig orientation is arbitrary: include reverse complements)
-    from hairsplitter_tpu.constants import revcomp
+    from hairsplitter_jax.constants import revcomp
 
     out_kmers = set()
     for s in g.segments.values():
@@ -69,7 +69,7 @@ def test_simple_mock_pipeline(tmp_path, rng):
             frac = _containment(region, out_kmers)
             assert frac > 0.7, (i, lo, hi, frac)
     # phasing quality: no switch errors among confidently assignable windows
-    from hairsplitter_tpu.utils.evaluate import evaluate_phasing
+    from hairsplitter_jax.utils.evaluate import evaluate_phasing
 
     ev = evaluate_phasing(
         {n: s for n, s in g.segments.items() if "consensus@2" not in n}, haps
@@ -97,9 +97,9 @@ def test_simple_mock_pipeline_sim2_reads(tmp_path):
     simulator (utils/sim2.py): the last self-evidence link — truth genomes
     from the reference repo AND an error process sharing no code with the
     primary simulator (round-4 verdict weak #1)."""
-    from hairsplitter_tpu.constants import revcomp
-    from hairsplitter_tpu.utils import sim2
-    from hairsplitter_tpu.utils.evaluate import evaluate_phasing
+    from hairsplitter_jax.constants import revcomp
+    from hairsplitter_jax.utils import sim2
+    from hairsplitter_jax.utils.evaluate import evaluate_phasing
 
     ref = read_fasta(os.path.join(MOCK_DIR, "mock_reference.fasta"))
     haps = [ref["seq1"], ref["seq2"], ref["seq3"]]

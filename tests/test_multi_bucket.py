@@ -9,15 +9,15 @@ single-bucket unpacked program.
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.core.mapping import _tier_plan
-from hairsplitter_tpu.ops.align import BandSpec
-from hairsplitter_tpu.ops.align_device import (
+from hairsplitter_jax.core.mapping import _tier_plan
+from hairsplitter_jax.ops.align import BandSpec
+from hairsplitter_jax.ops.align_device import (
     align_traceback_rows,
     align_traceback_rows_multi_packed,
     align_traceback_rows_packed,
     pack_nibbles_host,
 )
-from tests.test_align_myers import _random_batch
+from tests.test_traceback_rows import random_batch
 
 
 def test_tier_plan():
@@ -40,22 +40,18 @@ def test_pack_nibbles_roundtrip_odd_width():
     np.testing.assert_array_equal(back, a)
 
 
-@pytest.mark.parametrize("kernel", ["jnp", "myers"])
-def test_multi_packed_equals_single(kernel):
-    spec = BandSpec(chunk=64, band=128) if kernel == "myers" else BandSpec(chunk=48, band=32)
+@pytest.mark.parametrize("chunk,band", [(48, 32), (64, 128)])
+def test_multi_packed_equals_single(chunk, band):
+    spec = BandSpec(chunk=chunk, band=band)
     B, T = spec.chunk, spec.t_width
     rng = np.random.default_rng(2)
     K, n = 3, 32
     singles = []
     qs, qls, ts, tls, ms = [], [], [], [], []
     for _ in range(K):
-        q, ql, t, tl = _random_batch(rng, n, spec)
+        q, ql, t, tl = random_batch(rng, n, spec)
         m = (np.arange(n) % 2).astype(np.int32)
-        singles.append(
-            np.asarray(
-                align_traceback_rows(q, ql, t, tl, m, spec, kernel, interpret=True)
-            )
-        )
+        singles.append(np.asarray(align_traceback_rows(q, ql, t, tl, m, spec)))
         qs.append(pack_nibbles_host(q))
         ts.append(pack_nibbles_host(t))
         qls.append(ql)
@@ -63,16 +59,13 @@ def test_multi_packed_equals_single(kernel):
         ms.append(m)
     multi = np.asarray(
         align_traceback_rows_multi_packed(
-            np.stack(qs), np.stack(qls), np.stack(ts), np.stack(tls), np.stack(ms),
-            spec, kernel, B, T, interpret=True,
+            np.stack(qs), np.stack(qls), np.stack(ts), np.stack(tls), np.stack(ms), spec, B, T
         )
     )
     for k in range(K):
         np.testing.assert_array_equal(multi[k], singles[k])
     # packed single == unpacked single too
     got = np.asarray(
-        align_traceback_rows_packed(
-            qs[0], qls[0], ts[0], tls[0], ms[0], spec, kernel, B, T, interpret=True
-        )
+        align_traceback_rows_packed(qs[0], qls[0], ts[0], tls[0], ms[0], spec, B, T)
     )
     np.testing.assert_array_equal(got, singles[0])

@@ -1,5 +1,5 @@
-from hairsplitter_tpu.io.gfa import AssemblyGraph, Link
-from hairsplitter_tpu.pipeline.multiplicity import (
+from hairsplitter_jax.io.gfa import AssemblyGraph, Link
+from hairsplitter_jax.pipeline.multiplicity import (
     determine_multiplicity,
     estimate_haploid_coverage,
 )

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from hairsplitter_tpu import native
-from hairsplitter_tpu.core.seeding import _lis_monotonic
-from hairsplitter_tpu.ops.cluster import cw_numpy
-from hairsplitter_tpu.pipeline.separate_reads import create_read_graph
+from hairsplitter_jax import native
+from hairsplitter_jax.core.seeding import _lis_monotonic
+from hairsplitter_jax.ops.cluster import cw_numpy
+from hairsplitter_jax.pipeline.separate_reads import create_read_graph
 
 
 needs_native = pytest.mark.skipif(native.get_lib() is None, reason="native lib unavailable")
@@ -61,9 +61,9 @@ def test_native_cw_two_clusters():
 
 
 def test_native_minimizers_bit_identical(rng):
-    from hairsplitter_tpu import native
-    from hairsplitter_tpu.constants import encode_seq
-    from hairsplitter_tpu.core.seeding import _minimizers_numpy
+    from hairsplitter_jax import native
+    from hairsplitter_jax.constants import encode_seq
+    from hairsplitter_jax.core.seeding import _minimizers_numpy
 
     if native.get_lib() is None:
         import pytest
@@ -79,8 +79,8 @@ def test_native_minimizers_bit_identical(rng):
 
 
 def test_native_chain_sweep_bit_identical(rng):
-    from hairsplitter_tpu import native
-    from hairsplitter_tpu.core.seeding import chain_anchors
+    from hairsplitter_jax import native
+    from hairsplitter_jax.core.seeding import chain_anchors
 
     if native.get_lib() is None:
         import pytest
@@ -110,8 +110,8 @@ def test_native_chain_sweep_bit_identical(rng):
 
 
 def test_native_select_pins_bit_identical(rng):
-    from hairsplitter_tpu import native
-    from hairsplitter_tpu.core.mapping import MapConfig, select_pins
+    from hairsplitter_jax import native
+    from hairsplitter_jax.core.mapping import MapConfig, select_pins
 
     if native.get_lib() is None:
         import pytest
@@ -119,7 +119,7 @@ def test_native_select_pins_bit_identical(rng):
         pytest.skip("native lib unavailable")
     cfg = MapConfig()
     B, T, md = cfg.spec.chunk, cfg.spec.t_width, cfg.maxdrift
-    import hairsplitter_tpu.native as nat
+    import hairsplitter_jax.native as nat
 
     for trial in range(10):
         n = int(rng.integers(2, 120))
@@ -144,8 +144,8 @@ def test_native_merge_close_clusters_bit_identical(rng):
     """50-cluster window microbenchmark correctness: the C++ twin must
     reproduce the numpy merge_close_clusters label for label (VERDICT r3
     next-round #9; reference cluster_graph.cpp:402-501)."""
-    from hairsplitter_tpu import native as N
-    from hairsplitter_tpu.pipeline import separate_reads as SR
+    from hairsplitter_jax import native as N
+    from hairsplitter_jax.pipeline import separate_reads as SR
 
     if N.get_lib() is None:
         import pytest

@@ -3,9 +3,7 @@
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.models import polisher as P
-
-pytestmark = pytest.mark.skipif(not P.HAVE_FLAX, reason="flax unavailable")
+from hairsplitter_jax.models import polisher as P
 
 
 def _accuracy(pred, labels):
@@ -35,7 +33,9 @@ def test_nn_polisher_beats_majority(rng):
 
 
 def test_nn_polisher_corrects_backbone_divergence(rng):
-    nn = P.train_polisher(seed=1, steps=120, batch=8, L=256)
+    # 200 steps: at 120 the net is still half-trained and whether it passes
+    # depends on the draw of the initial weights (0.6-0.87 over seeds 0-5)
+    nn = P.train_polisher(seed=1, steps=200, batch=8, L=256)
     np_rng = np.random.default_rng(7)
     feats, labels = P._simulate_training_batch(np_rng, L=256, err=0.1, div=0.05)
     backbone = feats[:, 7:].argmax(axis=1)
@@ -52,11 +52,11 @@ def test_nn_polisher_realistic_reads_with_indels(rng):
     # (16% total error incl. indels) through the full alignment+pileup path,
     # not just the model's own synthetic feature distribution — low
     # coverage, where the learned prior has room to matter
-    from hairsplitter_tpu.constants import encode_seq
-    from hairsplitter_tpu.core.mapping import map_reads
-    from hairsplitter_tpu.ops.consensus import consensus_from_cells
-    from hairsplitter_tpu.pipeline.pileup import alignment_cells_full, orient_read
-    from hairsplitter_tpu.utils.sim import make_haplotypes, simulate_reads
+    from hairsplitter_jax.constants import encode_seq
+    from hairsplitter_jax.core.mapping import map_reads
+    from hairsplitter_jax.ops.consensus import consensus_from_cells
+    from hairsplitter_jax.pipeline.pileup import alignment_cells_full, orient_read
+    from hairsplitter_jax.utils.sim import make_haplotypes, simulate_reads
 
     def edit(a, b):
         m = np.zeros((len(a) + 1, len(b) + 1), int)
@@ -104,10 +104,10 @@ def test_medaka_composes_with_poa_ladder(rng):
     """-p medaka no longer disables the vote+POA ladder: the NN pass runs
     AFTER the POA with a read-fit tournament, so the flag can only match or
     improve the default's identity (VERDICT r3 weak #3)."""
-    from hairsplitter_tpu.ops.poa import poa_available, polish_poa
-    from hairsplitter_tpu.ops.consensus import polish_iterative
-    from hairsplitter_tpu.ops.triage import _backbone_badness
-    from hairsplitter_tpu.utils.sim import make_haplotypes, simulate_reads
+    from hairsplitter_jax.ops.poa import poa_available, polish_poa
+    from hairsplitter_jax.ops.consensus import polish_iterative
+    from hairsplitter_jax.ops.triage import _backbone_badness
+    from hairsplitter_jax.utils.sim import make_haplotypes, simulate_reads
 
     if not poa_available():
         pytest.skip("native POA unavailable")
@@ -148,3 +148,65 @@ def test_medaka_composes_with_poa_ladder(rng):
     # absolute floor is loose here because the test draft is a raw
     # 15%-error read (production drafts are vote consensi)
     assert id_medaka >= 0.98, id_medaka
+
+
+def _flax_cnn():
+    """The flax module the shipped weights were trained with (flax is a
+    test-only dependency)."""
+    nn_flax = pytest.importorskip("flax.linen")
+
+    class FlaxCNN(nn_flax.Module):
+        @nn_flax.compact
+        def __call__(self, x):
+            for _, kw in P.CONVS:
+                x = nn_flax.relu(nn_flax.Conv(P.WIDTH, kernel_size=(kw,))(x))
+            return nn_flax.Dense(P.N_CLASSES)(x)
+
+    return FlaxCNN
+
+
+def test_plain_forward_matches_flax_on_shipped_weights():
+    """The plain-JAX forward pass reads the shipped weights under their
+    flax keys and computes what the flax model it replaced computes: logits
+    within f32 rounding (both in full f32 on the CPU; the conv algorithms
+    may sum in other orders), argmax base calls identical."""
+    FlaxCNN = _flax_cnn()
+
+    pol = P.load_weights()
+    rng = np.random.default_rng(5)
+    feats = np.stack(
+        [P._simulate_training_batch(rng, L=256, cov_lo=3, cov_hi=20)[0] for _ in range(4)]
+    )
+    ref = np.asarray(FlaxCNN().apply(pol.params, feats))
+    got = np.stack([pol.logits(f) for f in feats])
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+
+
+def test_init_params_matches_flax_layout():
+    """Fresh parameters have the tree paths and shapes of the flax modules
+    the shipped weights were trained with (so they save under the same npz
+    keys), zero biases, lecun-normal kernels, and are fixed by the seed."""
+    import jax
+
+    FlaxCNN = _flax_cnn()
+
+    key = jax.random.PRNGKey(3)
+    ref = FlaxCNN().init(key, np.zeros((1, 64, P.N_FEATURES), np.float32))
+    got = P.init_params(key)
+    flat_r = jax.tree_util.tree_leaves_with_path(ref)
+    flat_g = dict(jax.tree_util.tree_leaves_with_path(got))
+    assert len(flat_r) == len(flat_g)
+    for path, leaf in flat_r:
+        assert flat_g[path].shape == leaf.shape, path
+    again = jax.tree_util.tree_leaves(P.init_params(key))
+    other = jax.tree_util.tree_leaves(P.init_params(jax.random.PRNGKey(4)))
+    for (path, g), a, o in zip(jax.tree_util.tree_leaves_with_path(got), again, other):
+        g = np.asarray(g)
+        np.testing.assert_array_equal(g, np.asarray(a))
+        if path[-1].key == "bias":
+            assert not g.any(), path
+        else:
+            assert not np.array_equal(g, np.asarray(o)), path
+            fan_in = int(np.prod(g.shape[:-1]))
+            assert abs(g.std() * np.sqrt(fan_in) - 1.0) < 0.15, (path, g.std())

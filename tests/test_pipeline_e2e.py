@@ -3,17 +3,17 @@ import os
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.io import parse_gfa, write_gfa, write_fasta
-from hairsplitter_tpu.io.gfa import AssemblyGraph
-from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, run_pipeline
-from hairsplitter_tpu.pipeline.unzip import (
+from hairsplitter_jax.io import parse_gfa, write_gfa, write_fasta
+from hairsplitter_jax.io.gfa import AssemblyGraph
+from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, run_pipeline
+from hairsplitter_jax.pipeline.unzip import (
     count_link_support,
     duplicate_contigs,
     merge_linear_chains,
     unzip,
 )
-from hairsplitter_tpu.io.gfa import Link
-from hairsplitter_tpu.utils.sim import make_haplotypes, mutate, simulate_reads, write_sim_fasta
+from hairsplitter_jax.io.gfa import Link
+from hairsplitter_jax.utils.sim import make_haplotypes, mutate, simulate_reads, write_sim_fasta
 
 
 def _identity(a: str, b: str) -> float:
@@ -109,11 +109,11 @@ def test_hifi_preset_end_to_end(tmp_path, rng):
     """-x hifi runs the whole pipeline with the HiFi seeding preset
     (k19/w19, no rescue pass — low-error reads need no dense re-seeding)
     and still phases a diploid mix perfectly at 1% read error."""
-    from hairsplitter_tpu.constants import revcomp
-    from hairsplitter_tpu.io.fasta import write_fasta
-    from hairsplitter_tpu.io.gfa import parse_gfa
-    from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, run_pipeline
-    from hairsplitter_tpu.utils.sim import make_haplotypes, mutate, simulate_reads, write_sim_fasta
+    from hairsplitter_jax.constants import revcomp
+    from hairsplitter_jax.io.fasta import write_fasta
+    from hairsplitter_jax.io.gfa import parse_gfa
+    from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, run_pipeline
+    from hairsplitter_jax.utils.sim import make_haplotypes, mutate, simulate_reads, write_sim_fasta
 
     hap1 = make_haplotypes(15_000, 1, 0.001, rng)[0]
     hap2, _ = mutate(hap1, 0.01, rng)

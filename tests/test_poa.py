@@ -10,10 +10,10 @@ pileup vote on very noisy reads.
 import numpy as np
 import pytest
 
-from hairsplitter_tpu import native
-from hairsplitter_tpu.core.mapping import MapConfig, map_reads
-from hairsplitter_tpu.ops.poa import poa_available, polish_poa
-from hairsplitter_tpu.utils.sim import random_genome, simulate_reads
+from hairsplitter_jax import native
+from hairsplitter_jax.core.mapping import MapConfig, map_reads
+from hairsplitter_jax.ops.poa import poa_available, polish_poa
+from hairsplitter_jax.utils.sim import random_genome, simulate_reads
 
 pytestmark = pytest.mark.skipif(not poa_available(), reason="native library unavailable")
 
@@ -73,7 +73,7 @@ def test_poa_near_exact_at_20pct():
 def test_polish_poa_beats_vote_on_noisy_reads():
     """The reference's own ladder is consensus-vote then racon; at 18% read
     error the vote plateaus while vote+POA pushes past 99.5% identity."""
-    from hairsplitter_tpu.ops.consensus import polish_iterative
+    from hairsplitter_jax.ops.consensus import polish_iterative
 
     rng = np.random.default_rng(5)
     truth = random_genome(1500, rng)
@@ -103,7 +103,7 @@ def test_polish_poa_noop_on_clean_reads():
 def test_poa_batch_matches_per_window():
     """hs_poa_consensus_batch (threaded) is bit-identical to per-window
     hs_poa_consensus calls on the same layers."""
-    from hairsplitter_tpu import native
+    from hairsplitter_jax import native
 
     if native.get_lib() is None:
         import pytest
@@ -134,7 +134,7 @@ def test_poa_batch_matches_per_window():
 def test_polish_poa_multi_matches_single():
     """Joint multi-group POA polish (one restricted mapping + one POA batch)
     recovers each group's truth like the per-group path."""
-    from hairsplitter_tpu.ops.poa import polish_poa_multi
+    from hairsplitter_jax.ops.poa import polish_poa_multi
 
     rng = np.random.default_rng(21)
     truths = [random_genome(1200, rng) for _ in range(3)]
@@ -155,7 +155,7 @@ def test_polish_poa_multi_matches_single():
 
 def test_map_reads_restrict_pins_reads_to_their_draft():
     """With `restrict`, reads never map across homologous drafts."""
-    from hairsplitter_tpu.core.mapping import map_reads
+    from hairsplitter_jax.core.mapping import map_reads
 
     rng = np.random.default_rng(33)
     base = random_genome(3000, rng)

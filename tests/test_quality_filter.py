@@ -1,4 +1,4 @@
-from hairsplitter_tpu.io.fasta import ReadStore, filter_fastq_by_quality
+from hairsplitter_jax.io.fasta import ReadStore, filter_fastq_by_quality
 
 
 def test_filter_fastq_by_quality(tmp_path):

@@ -5,15 +5,15 @@ import os
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.io.fasta import write_fasta
-from hairsplitter_tpu.io.gfa import AssemblyGraph, Link, bluntify_graph, parse_gfa, write_gfa
-from hairsplitter_tpu.pipeline.orchestrate import (
+from hairsplitter_jax.io.fasta import write_fasta
+from hairsplitter_jax.io.gfa import AssemblyGraph, Link, bluntify_graph, parse_gfa, write_gfa
+from hairsplitter_jax.pipeline.orchestrate import (
     PipelineConfig,
     TECH_PRESETS,
     apply_tech_preset,
     run_pipeline,
 )
-from hairsplitter_tpu.utils.sim import make_haplotypes, mutate, simulate_reads
+from hairsplitter_jax.utils.sim import make_haplotypes, mutate, simulate_reads
 
 
 @pytest.fixture(scope="module")

@@ -4,11 +4,11 @@ import gzip
 
 import numpy as np
 
-from hairsplitter_tpu.io import parse_gfa, write_gfa
-from hairsplitter_tpu.io.fasta import ReadStore
-from hairsplitter_tpu.io.gfa import AssemblyGraph
-from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, run_pipeline
-from hairsplitter_tpu.utils.sim import make_haplotypes, mutate, simulate_reads
+from hairsplitter_jax.io import parse_gfa, write_gfa
+from hairsplitter_jax.io.fasta import ReadStore
+from hairsplitter_jax.io.gfa import AssemblyGraph
+from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, run_pipeline
+from hairsplitter_jax.utils.sim import make_haplotypes, mutate, simulate_reads
 
 
 def test_gzipped_reads(tmp_path):
@@ -54,7 +54,7 @@ def test_resume_reloads_sam(tmp_path, rng):
     asm_path = str(tmp_path / "a.gfa")
     write_gfa(asm, asm_path)
     reads_path = str(tmp_path / "r.fa")
-    from hairsplitter_tpu.utils.sim import write_sim_fasta
+    from hairsplitter_jax.utils.sim import write_sim_fasta
 
     write_sim_fasta(reads_path, sim)
     out = str(tmp_path / "out")

@@ -3,18 +3,15 @@
 - resume fingerprint covers the mapping config (orchestrate._fingerprint)
 - per-path GAF records with real coordinates (new_contigs.write_gaf)
 - InteractionMatrix is dict-indexed (pipeline/hic.py)
-- scripts/demo.py honors JAX_PLATFORMS
 """
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 
-from hairsplitter_tpu.pipeline.hic import InteractionMatrix, interaction_matrix_from_pairs
-from hairsplitter_tpu.pipeline.new_contigs import GafPart, write_gaf
-from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, _fingerprint
+from hairsplitter_jax.pipeline.hic import InteractionMatrix, interaction_matrix_from_pairs
+from hairsplitter_jax.pipeline.new_contigs import GafPart, write_gaf
+from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, _fingerprint
 
 
 def test_fingerprint_covers_mapping_config(tmp_path):
@@ -87,7 +84,7 @@ def test_tech_preset_does_not_clobber_user_map_params():
     flags appended after `-x map-ont` take precedence (hairsplitter.py:629)."""
     from dataclasses import replace
 
-    from hairsplitter_tpu.pipeline.orchestrate import apply_tech_preset
+    from hairsplitter_jax.pipeline.orchestrate import apply_tech_preset
 
     cfg = PipelineConfig(technology="ont")
     cfg = replace(cfg, map=replace(cfg.map, k=21, w=12))
@@ -97,8 +94,3 @@ def test_tech_preset_does_not_clobber_user_map_params():
     hifi = apply_tech_preset(PipelineConfig(technology="hifi"))
     assert hifi.map.k == 19 and hifi.map.w == 19 and hifi.map.rescue is False
 
-
-def test_demo_honors_jax_platforms():
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    src = open(os.path.join(root, "scripts", "demo.py")).read()
-    assert "honor_jax_platforms_env()" in src

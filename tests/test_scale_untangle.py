@@ -10,9 +10,9 @@ import time
 
 import numpy as np
 
-from hairsplitter_tpu.io.gfa import AssemblyGraph, Link
-from hairsplitter_tpu.pipeline.unzip import unzip
-from hairsplitter_tpu.utils.sim import random_genome
+from hairsplitter_jax.io.gfa import AssemblyGraph, Link
+from hairsplitter_jax.pipeline.unzip import unzip
+from hairsplitter_jax.utils.sim import random_genome
 
 
 def test_5mbp_5000_contig_untangle_under_10s(rng):

@@ -1,15 +1,15 @@
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.core.mapping import map_reads
-from hairsplitter_tpu.ops.cluster import chinese_whispers_matmul, cw_numpy, sims_diffs
-from hairsplitter_tpu.pipeline.call_variants import call_variants_for_contig
-from hairsplitter_tpu.pipeline.separate_reads import (
+from hairsplitter_jax.core.mapping import map_reads
+from hairsplitter_jax.ops.cluster import chinese_whispers_matmul, cw_numpy, sims_diffs
+from hairsplitter_jax.pipeline.call_variants import call_variants_for_contig
+from hairsplitter_jax.pipeline.separate_reads import (
     SeparateConfig,
     create_read_graph,
     separate_reads_for_contig,
 )
-from hairsplitter_tpu.utils.sim import make_haplotypes, mutate, simulate_reads
+from hairsplitter_jax.utils.sim import make_haplotypes, mutate, simulate_reads
 
 
 def test_sims_diffs_matmul():
@@ -164,7 +164,7 @@ def test_ploidy_cap(rng):
 
 def test_sims_diffs_packed_matches():
     """Bit-packed indicator transfer gives identical sim/diff matrices."""
-    from hairsplitter_tpu.ops.cluster import sims_diffs_packed
+    from hairsplitter_jax.ops.cluster import sims_diffs_packed
 
     rng = np.random.default_rng(4)
     n, S = 64, 96

@@ -8,8 +8,8 @@ is asserted bit-for-bit (all cross-shard reductions are integer-exact)."""
 import jax
 import numpy as np
 
-from hairsplitter_tpu.ops.phase import phase_contigs_batch, read_graph_device
-from hairsplitter_tpu.parallel.mesh import (
+from hairsplitter_jax.ops.phase import phase_contigs_batch, read_graph_device
+from hairsplitter_jax.parallel.mesh import (
     make_mesh,
     make_phase_example,
     phase_shard_step,
@@ -42,7 +42,7 @@ def test_phase_step_single_device_separates():
 
 
 def test_read_graph_device_matches_host():
-    from hairsplitter_tpu.pipeline.separate_reads import build_read_graph
+    from hairsplitter_jax.pipeline.separate_reads import build_read_graph
 
     rng = np.random.default_rng(0)
     n = 48
@@ -78,8 +78,8 @@ def test_phase_shard_step_matches_unsharded():
 
 def test_pipeline_window_uses_mesh_code():
     """The pipeline's device window step is the function the mesh shards."""
-    from hairsplitter_tpu.ops.phase import phase_windows_jit
-    from hairsplitter_tpu.pipeline import separate_reads as sr
+    from hairsplitter_jax.ops.phase import phase_windows_jit
+    from hairsplitter_jax.pipeline import separate_reads as sr
 
     assert sr.SeparateConfig(use_device_cw=True).device_cw_resolved()
     # source-level wiring: the device branch calls ops.phase.phase_windows_jit
@@ -111,17 +111,15 @@ def test_map_shard_step_bit_identical():
     data parallelism over chunk rows (no collectives)."""
     import numpy as np
 
-    from hairsplitter_tpu.ops.align import BandSpec
-    from hairsplitter_tpu.ops.align_device import align_traceback_rows
-    from hairsplitter_tpu.parallel.mesh import make_mesh, map_shard_step
+    from hairsplitter_jax.ops.align import BandSpec
+    from hairsplitter_jax.ops.align_device import align_traceback_rows
+    from hairsplitter_jax.parallel.mesh import make_mesh, map_shard_step
 
     mesh = make_mesh(8)
     fn, args = map_shard_step(mesh)
     out = np.asarray(fn(*args))
     ref = np.asarray(
-        align_traceback_rows(
-            *(np.asarray(a) for a in args), BandSpec(chunk=64, band=32), "jnp"
-        )
+        align_traceback_rows(*(np.asarray(a) for a in args), BandSpec(chunk=64, band=32))
     )
     np.testing.assert_array_equal(out, ref)
 
@@ -145,8 +143,8 @@ def test_phase_shard_production_shapes_bit_identical():
 def test_column_stats_shard_matches_host():
     """Stage-3's window column-stats kernel under the mesh: bit-identical
     to the host numpy twin at production shapes."""
-    from hairsplitter_tpu.ops.variants import column_stats_host
-    from hairsplitter_tpu.parallel.mesh import column_stats_shard_step
+    from hairsplitter_jax.ops.variants import column_stats_host
+    from hairsplitter_jax.parallel.mesh import column_stats_shard_step
 
     mesh = make_mesh(8)
     ctg, pos = mesh.devices.shape

@@ -9,12 +9,12 @@ headline behaviors must hold on its reads too.
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.io.fasta import write_fasta
-from hairsplitter_tpu.io.gfa import parse_gfa
-from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, run_pipeline
-from hairsplitter_tpu.utils import sim2
-from hairsplitter_tpu.utils.evaluate import evaluate_phasing
-from hairsplitter_tpu.utils.sim import make_haplotypes
+from hairsplitter_jax.io.fasta import write_fasta
+from hairsplitter_jax.io.gfa import parse_gfa
+from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, run_pipeline
+from hairsplitter_jax.utils import sim2
+from hairsplitter_jax.utils.evaluate import evaluate_phasing
+from hairsplitter_jax.utils.sim import make_haplotypes
 
 
 def test_sim2_reads_have_independent_properties():
@@ -52,9 +52,9 @@ def test_hp_deletion_guard_blocks_runlength_miscalls():
     variants (they are run-length miscalls — the dominant systematic
     long-read error; with sim2's hp model they flooded the robust filter
     3802-strong before the guard)."""
-    from hairsplitter_tpu.constants import GAP
+    from hairsplitter_jax.constants import GAP
 
-    from hairsplitter_tpu.pipeline.call_variants import call_variants_for_contig
+    from hairsplitter_jax.pipeline.call_variants import call_variants_for_contig
     # a contig with a long homopolymer; reads all undercall it
     core = "ACGTCCGATG" * 20
     contig = core + "A" * 8 + core[::-1]
@@ -63,7 +63,7 @@ def test_hp_deletion_guard_blocks_runlength_miscalls():
         # half the reads drop one A from the run
         run = "A" * (7 if i % 2 == 0 else 8)
         reads[i] = core + run + core[::-1]
-    from hairsplitter_tpu.core.mapping import MapConfig, map_reads
+    from hairsplitter_jax.core.mapping import MapConfig, map_reads
 
     alns = map_reads({"c": contig}, [reads[i] for i in range(30)], MapConfig())
     cv = call_variants_for_contig("c", contig, alns, reads, mean_error_hint=0.05)

@@ -19,11 +19,11 @@ import os
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.io.fasta import write_fasta
-from hairsplitter_tpu.io.gfa import parse_gfa
-from hairsplitter_tpu.pipeline.orchestrate import PipelineConfig, run_pipeline
-from hairsplitter_tpu.utils import sim as S
-from hairsplitter_tpu.utils.evaluate import evaluate_phasing
+from hairsplitter_jax.io.fasta import write_fasta
+from hairsplitter_jax.io.gfa import parse_gfa
+from hairsplitter_jax.pipeline.orchestrate import PipelineConfig, run_pipeline
+from hairsplitter_jax.utils import sim as S
+from hairsplitter_jax.utils.evaluate import evaluate_phasing
 
 
 def stress_dataset(length: int, coverage: float, rng):
@@ -97,7 +97,7 @@ def test_continuity_rescue_improves_contiguity(tmp_path):
     """The bidirectional continuity rescue (SeparateConfig.continuity_rescue)
     must not fragment MORE than the reference's flat <5 kill, and on
     marginal coverage (10x/strain, 3 strains) it should fragment less."""
-    from hairsplitter_tpu.pipeline.separate_reads import SeparateConfig
+    from hairsplitter_jax.pipeline.separate_reads import SeparateConfig
 
     rng = np.random.default_rng(13)
     haps = S.make_haplotypes(30_000, 3, 0.01, rng)

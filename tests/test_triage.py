@@ -3,20 +3,20 @@ wrong backbone inside one group must still yield a correct output contig."""
 
 import numpy as np
 
-from hairsplitter_tpu.constants import encode_seq
-from hairsplitter_tpu.core.mapping import map_reads
-from hairsplitter_tpu.io.gfa import AssemblyGraph
-from hairsplitter_tpu.ops.triage import (
+from hairsplitter_jax.constants import encode_seq
+from hairsplitter_jax.core.mapping import map_reads
+from hairsplitter_jax.io.gfa import AssemblyGraph
+from hairsplitter_jax.ops.triage import (
     BACKBONE_BIG_INDELS,
     BACKBONE_BREAKPOINTS,
     BACKBONE_GOOD,
     alternative_backbone,
     check_backbone,
 )
-from hairsplitter_tpu.pipeline.new_contigs import create_new_contigs
-from hairsplitter_tpu.pipeline.pileup import alignment_cells_full, orient_read
-from hairsplitter_tpu.pipeline.separate_reads import ContigGroups, WindowGroups
-from hairsplitter_tpu.utils.sim import random_genome, simulate_reads
+from hairsplitter_jax.pipeline.new_contigs import create_new_contigs
+from hairsplitter_jax.pipeline.pileup import alignment_cells_full, orient_read
+from hairsplitter_jax.pipeline.separate_reads import ContigGroups, WindowGroups
+from hairsplitter_jax.utils.sim import random_genome, simulate_reads
 
 
 def _cells_of(alns, seqs):

@@ -6,8 +6,8 @@ junctions is resolved by walking straight lines to the nearest branching
 
 import numpy as np
 
-from hairsplitter_tpu.io.gfa import AssemblyGraph, Link
-from hairsplitter_tpu.pipeline.unzip import DUMMY, duplicate_contigs, unzip
+from hairsplitter_jax.io.gfa import AssemblyGraph, Link
+from hairsplitter_jax.pipeline.unzip import DUMMY, duplicate_contigs, unzip
 
 
 def _mkgraph(segs, links, depth=20.0):
@@ -153,10 +153,10 @@ def test_repolish_copies_restores_path_content(rng):
     other haplotype's."""
     import numpy as np
 
-    from hairsplitter_tpu.constants import revcomp
-    from hairsplitter_tpu.io.gfa import AssemblyGraph, Link
-    from hairsplitter_tpu.pipeline.unzip import unzip
-    from hairsplitter_tpu.utils.sim import mutate, random_genome
+    from hairsplitter_jax.constants import revcomp
+    from hairsplitter_jax.io.gfa import AssemblyGraph, Link
+    from hairsplitter_jax.pipeline.unzip import unzip
+    from hairsplitter_jax.utils.sim import mutate, random_genome
 
     A1, A2 = random_genome(1200, rng), random_genome(1200, rng)
     C1, C2 = random_genome(1200, rng), random_genome(1200, rng)

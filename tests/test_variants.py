@@ -1,23 +1,23 @@
 import numpy as np
 import pytest
 
-from hairsplitter_tpu.constants import GAP, TRIMER_ABSENT, encode_seq, trimer_central
-from hairsplitter_tpu.core.mapping import map_reads
-from hairsplitter_tpu.io.cigar import parse_cigar
-from hairsplitter_tpu.core.datatypes import Alignment
-from hairsplitter_tpu.ops.variants import column_stats, suspect_mask
-from hairsplitter_tpu.pipeline.call_variants import (
+from hairsplitter_jax.constants import GAP, TRIMER_ABSENT, encode_seq, trimer_central
+from hairsplitter_jax.core.mapping import map_reads
+from hairsplitter_jax.io.cigar import parse_cigar
+from hairsplitter_jax.core.datatypes import Alignment
+from hairsplitter_jax.ops.variants import column_stats, suspect_mask
+from hairsplitter_jax.pipeline.call_variants import (
     VariantCallConfig,
     call_variants_for_contig,
     pooled_error_rate,
 )
-from hairsplitter_tpu.pipeline.pileup import alignment_cells, build_window_blocks
-from hairsplitter_tpu.utils.sim import make_haplotypes, mutate, simulate_reads
+from hairsplitter_jax.pipeline.pileup import alignment_cells, build_window_blocks
+from hairsplitter_jax.utils.sim import make_haplotypes, mutate, simulate_reads
 
 
 def _mk_aln(cig, t_start=0, q_start=0, strand=1, read_idx=0, contig="c"):
     ops, lens = parse_cigar(cig)
-    from hairsplitter_tpu.io.cigar import cigar_query_len, cigar_target_len
+    from hairsplitter_jax.io.cigar import cigar_query_len, cigar_target_len
 
     return Alignment(
         read_idx=read_idx,
@@ -154,8 +154,8 @@ def test_column_stats_host_twin_matches_device(rng):
     small windows to avoid per-shape device compiles)."""
     import numpy as np
 
-    from hairsplitter_tpu.constants import TRIMER_ABSENT
-    from hairsplitter_tpu.ops.variants import (
+    from hairsplitter_jax.constants import TRIMER_ABSENT
+    from hairsplitter_jax.ops.variants import (
         column_stats,
         column_stats_host,
         window_error_stats,
@@ -180,7 +180,7 @@ def test_packed_correlation_matches_unpacked():
     bit-identical to the f32 versions (same math after on-device unpack)."""
     import numpy as np
 
-    from hairsplitter_tpu.ops.variants import (
+    from hairsplitter_jax.ops.variants import (
         pairwise_column_correlation,
         pairwise_column_correlation_packed,
         partition_column_keep,
@@ -220,15 +220,15 @@ def test_auto_frac_rescues_high_frequency_snps():
     has nothing to correlate with)."""
     import numpy as np
 
-    from hairsplitter_tpu.constants import encode_seq
-    from hairsplitter_tpu.core.datatypes import Alignment
-    from hairsplitter_tpu.pipeline.call_variants import (
+    from hairsplitter_jax.constants import encode_seq
+    from hairsplitter_jax.core.datatypes import Alignment
+    from hairsplitter_jax.pipeline.call_variants import (
         VariantCallConfig,
         call_variants_from_prep,
         finish_preps,
         prepare_contig_host,
     )
-    from hairsplitter_tpu.utils.sim import random_genome
+    from hairsplitter_jax.utils.sim import random_genome
 
     rng = np.random.default_rng(3)
     contig = random_genome(4000, rng)
@@ -240,7 +240,7 @@ def test_auto_frac_rescues_high_frequency_snps():
         rc = codes.copy()
         if r % 2 == 0:
             rc[2000] = alt
-        from hairsplitter_tpu.constants import decode_seq
+        from hairsplitter_jax.constants import decode_seq
 
         reads[r] = decode_seq(rc)
         alns.append(
